@@ -1,5 +1,5 @@
 classdef HYMLS < handle
-% HYMLS  MATLAB interface to the hymls_tpu preconditioner.
+% HYMLS  MATLAB interface to the hymls preconditioner.
 %
 %   h = HYMLS(A, 'params.xml')   build the multilevel preconditioner
 %                                for the sparse matrix A with the
@@ -14,9 +14,9 @@ classdef HYMLS < handle
 %
 % Same calling convention as the reference MEX interface
 % (reference matlab/HYMLS.m, matlab/HYMLS_init.cpp:14-91), but backed
-% by a persistent Python server process (hymls_tpu.matlab_bridge) over
+% by a persistent Python server process (hymls.matlab_bridge) over
 % a file-RPC protocol, so no MEX compilation is required.  Requires
-% `python` with hymls_tpu importable on PYTHONPATH.
+% `python` with hymls importable on PYTHONPATH.
 
     properties
         dir        % session directory
@@ -43,11 +43,11 @@ classdef HYMLS < handle
             % start the server detached
             if ispc
                 system(sprintf( ...
-                    'start /b python -m hymls_tpu.matlab_bridge "%s"', ...
+                    'start /b python -m hymls.matlab_bridge "%s"', ...
                     h.dir));
             else
                 system(sprintf( ...
-                    'python -m hymls_tpu.matlab_bridge "%s" >"%s" 2>&1 &', ...
+                    'python -m hymls.matlab_bridge "%s" >"%s" 2>&1 &', ...
                     h.dir, fullfile(h.dir, 'server.log')));
             end
             h.wait_for(fullfile(h.dir, 'server.ready'), 120);

@@ -1,4 +1,4 @@
-"""Import before hymls_tpu in ad-hoc scripts to force the CPU backend."""
+"""Import before hymls in ad-hoc scripts to force the CPU backend."""
 import os
 
 flags = os.environ.get("XLA_FLAGS", "")
@@ -9,5 +9,7 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/hymls_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+from hymls.utils import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=0.5)

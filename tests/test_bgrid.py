@@ -2,13 +2,13 @@
 Cartesian, 2 levels, coarsening 2, <=60 iterations at 1e-9)."""
 import numpy as np
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector, \
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector, \
     create_nullspace
 
 
 def test_stokes_b_no_dropping():
-    from hymls_tpu import Preconditioner, Solver
+    from hymls import Preconditioner, Solver
     nx = 32
     params = Params({
         "Problem": {"Equations": "Stokes-B", "Dimension": 2,
@@ -88,7 +88,7 @@ def _lt_params(lbl, nx=8):
 def _run_lt(lbl):
     """Reference stokes_L / stokes_THCM: 3D L/T grids, column
     subdomains (full z), Apply Dropping=false, <=80 iters @1e-9."""
-    from hymls_tpu import Preconditioner, Solver
+    from hymls import Preconditioner, Solver
     params = _lt_params(lbl)
     K = create_matrix(params)
     tv = create_testvector(params, K)
@@ -123,7 +123,7 @@ def test_stokes_thcm_3d():
 def test_stokes_l2_bgrid_transform():
     """Reference stokes_L2: 3D L-grid with the B-Grid velocity
     transform (M = T'KT) plus parity group splitting."""
-    from hymls_tpu import Preconditioner, Solver
+    from hymls import Preconditioner, Solver
     params = _lt_params("Stokes-L")
     params.sublist("Preconditioner")["B-Grid Transform"] = True
     K = create_matrix(params)

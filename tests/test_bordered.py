@@ -5,10 +5,10 @@ nullspace border, <=38 GMRES iterations at 5e-10) and the cavity.xml
 setup (Stokes-C + Constant P border, Cartesian partitioner)."""
 import numpy as np
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import (laplace2d_neumann, create_matrix,
+from hymls.config import Params
+from hymls.stencils import (laplace2d_neumann, create_matrix,
                                 create_testvector, create_nullspace)
-from hymls_tpu import Preconditioner, Solver
+from hymls import Preconditioner, Solver
 
 
 def test_bordering1_neumann_laplace():
@@ -120,7 +120,7 @@ def test_skew_stokes_bordered():
 def test_periodic_stokes_skew_bordered():
     """x/y-periodic Stokes (reference stokes4/5 family) with the
     Constant nullspace border."""
-    from hymls_tpu.stencils import create_matrix, create_nullspace
+    from hymls.stencils import create_matrix, create_nullspace
     nx = 16
     params = Params({
         "Problem": {"Equations": "Stokes-C", "Dimension": 2,
@@ -156,7 +156,7 @@ def test_periodic_stokes_skew_bordered():
 def test_restarted_gmres_num_blocks():
     """Belos 'Num Blocks' (GMRES restart length) parameter parity:
     restarted cycles converge to the same answer."""
-    from hymls_tpu.stencils import laplace2d
+    from hymls.stencils import laplace2d
     K = laplace2d(32, 32)
     base = {
         "Problem": {"Equations": "Laplace", "Dimension": 2,

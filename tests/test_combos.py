@@ -3,11 +3,11 @@
 import numpy as np
 import scipy.sparse as sp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import (laplace2d_neumann, create_testvector,
+from hymls.config import Params
+from hymls.stencils import (laplace2d_neumann, create_testvector,
                                 create_nullspace)
-from hymls_tpu import Preconditioner, Solver
-from hymls_tpu.solvers.complex_solver import ComplexSolver
+from hymls import Preconditioner, Solver
+from hymls.solvers.complex_solver import ComplexSolver
 
 
 def _neumann_setup(nx=32, levels=2, extra_solver=None):

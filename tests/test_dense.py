@@ -1,10 +1,11 @@
-"""f64-via-f32 mixed-precision dense inverse accuracy (VERDICT r1 item 7).
+"""Dense inverse accuracy: the residual-adaptive Newton polish.
 
-The TPU path of `inv_newton` factors in f32 and Newton-refines in f64
-(XLA:TPU has no f64 LU).  These tests force that path on CPU
-(`force_mixed=True`) and check that the residual-adaptive refinement
-recovers f64 residual accuracy on ill-conditioned blocks of the kind the
-multilevel method produces (periodic Schur complements, reference
+`_newton_refine` (X <- X + X(I - AX), early exit, divergence guard)
+polishes f64 inverses in `inv_newton` and warm-started inverses in
+`warm_inv`.  These tests seed it with an f32 inverse — the hardest
+seed it meets — and check that it recovers f64 residual accuracy on
+ill-conditioned blocks of the kind the multilevel method produces
+(periodic Schur complements, reference
 src/HYMLS_SchurPreconditioner.cpp:520-629 next-level matrices).
 """
 import _cpu  # noqa: F401  (pin CPU backend before jax init)
@@ -14,7 +15,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from hymls_tpu.core.dense import inv_newton
+from hymls.core.dense import _newton_refine, inv_newton
+
+
+def _f32_seeded(A, refine=6):
+    """f64 inverse from an f32 seed + `refine` adaptive Newton steps."""
+    A = jnp.asarray(A)
+    X = jnp.linalg.inv(A.astype(jnp.float32)).astype(A.dtype)
+    return _newton_refine(A, X, max_steps=refine)
 
 
 def _spd_with_cond(n, cond, rng, batch=None):
@@ -41,7 +49,7 @@ def test_mixed_inverse_ill_conditioned(cond):
     2.5e-10 at cond 1e7)."""
     rng = np.random.default_rng(42)
     A = _spd_with_cond(24, cond, rng, batch=8)
-    X = np.asarray(inv_newton(jnp.asarray(A), force_mixed=True))
+    X = np.asarray(_f32_seeded(A))
     r_ref = _resid(A, np.linalg.inv(A))
     assert _resid(A, X) < 10 * r_ref + 1e-13
 
@@ -54,7 +62,7 @@ def test_mixed_inverse_divergence_guard():
     Af32seed = np.asarray(
         jnp.linalg.inv(jnp.asarray(A, jnp.float32)), np.float64)
     r0 = _resid(A, Af32seed)
-    X = np.asarray(inv_newton(jnp.asarray(A), force_mixed=True))
+    X = np.asarray(_f32_seeded(A))
     assert np.isfinite(X).all()
     assert _resid(A, X) <= r0 * (1 + 1e-9)
 
@@ -65,7 +73,7 @@ def test_mixed_inverse_early_exit_matches_full():
     perf property; here we check accuracy parity)."""
     rng = np.random.default_rng(3)
     A = _spd_with_cond(16, 10.0, rng, batch=4)
-    X = np.asarray(inv_newton(jnp.asarray(A), force_mixed=True))
+    X = np.asarray(_f32_seeded(A))
     Xref = np.linalg.inv(A)
     assert np.max(np.abs(X - Xref)) < 1e-12
 
@@ -74,16 +82,13 @@ def test_mixed_inverse_early_exit_matches_full():
 def test_multilevel_f64_through_mixed_path():
     """Full multilevel f64 solve (Stokes-C 32^2, L=2 — the stokes2-class
     shape) with every batched/dense inverse forced through the
-    f32-factor + Newton path: relative residual and iteration count must
+    f32-seed + Newton path: relative residual and iteration count must
     match the all-f64 method (the reference hits 1e-10-class tolerances
-    with KLU in f64, src/HYMLS_SparseDirectSolver.cpp; our TPU path must
-    not lose that)."""
-    import functools
-
-    import hymls_tpu.core.preconditioner as pc
-    from hymls_tpu.config import Params
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu import Preconditioner, Solver
+    with KLU in f64, src/HYMLS_SparseDirectSolver.cpp)."""
+    import hymls.core.preconditioner as pc
+    from hymls.config import Params
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls import Preconditioner, Solver
 
     params = Params({
         "Problem": {"Equations": "Stokes-C", "Dimension": 2,
@@ -103,7 +108,7 @@ def test_multilevel_f64_through_mixed_path():
     b = K @ x_ex
 
     orig = pc._inv
-    pc._inv = functools.partial(inv_newton, force_mixed=True)
+    pc._inv = _f32_seeded
     try:
         P = Preconditioner(K, params, testvector=tv, dtype=jnp.float64)
         S = Solver(K, P, params, dtype=jnp.float64)
@@ -130,12 +135,12 @@ def test_factor_precision_f64_assembly():
     multilevel Schur assembly cancels catastrophically (measured 2.1%
     apply error on Stokes-C 32^2 L=2 and 86% / outright divergence on
     skew 32^3 L=2), while f64-assembled values cast to f32 stay within
-    f32 apply-arithmetic noise.  This is the TPU analogue of the
+    f32 apply-arithmetic noise.  This is the analogue of the
     reference performing all setup in double
     (HYMLS_SchurPreconditioner.cpp AssembleTransformAndDrop)."""
-    from hymls_tpu.config import Params
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu import Preconditioner
+    from hymls.config import Params
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls import Preconditioner
 
     params = Params({
         "Problem": {"Equations": "Stokes-C", "Dimension": 2,
@@ -170,11 +175,10 @@ def test_factor_precision_f64_assembly():
     e_up = err(P32u)
     e_same = err(Preconditioner(K, params, testvector=tv,
                                 dtype=jnp.float32).compute())
-    # measured on TPU: 4.8e-7 vs 2.1e-2 (f32 matmuls round through
-    # bf16 there).  On CPU both pipelines use native f64 LU so the f32
-    # comparator is only ~5e-5; with blkinv/coarse now inverted in the
-    # store dtype the upcast error is ~1.5e-6 — require one order of
-    # magnitude plus the absolute bound the f64 IR outer loop needs.
+    # both pipelines use native LU, so the f32 comparator is ~5e-5;
+    # with blkinv/coarse inverted in the store dtype the upcast error
+    # is ~1.5e-6 — require one order of magnitude plus the absolute
+    # bound the f64 IR outer loop needs.
     assert e_up < 1e-4, e_up
     assert e_up < e_same / 10, (e_up, e_same)
 
@@ -185,9 +189,9 @@ def test_ir_solver_factor_precision_default_and_optin():
     every product is precision=HIGHEST — round 4), converging a
     multilevel problem to f64 tolerance through the f32 inner path;
     'Factor Precision' = 'f64' opts back into the upcast chain."""
-    from hymls_tpu.config import Params
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.config import Params
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls.solvers.mixed import IterativeRefinementSolver
 
     def make(fprec=None):
         prec = {"Separator Length": 4, "Number of Levels": 2}
@@ -226,17 +230,13 @@ def test_ir_solver_factor_precision_default_and_optin():
 
 
 def test_inv_chain_hybrid_accuracy():
-    """inv_chain (f32 seed + ONE hybrid Newton step — f64 residual,
-    f32 correction) must reach ~1e-9-class inverse residual on
-    subdomain-interior-like conditioning: sufficient for the factor
-    values chain whose output is cast to f32 anyway (6e-8), 9x cheaper
-    than the adaptive f64 refinement on TPU (262 ms -> ~30 ms measured
-    on (1024,47,47))."""
-    from hymls_tpu.core.dense import inv_chain
-
+    """ONE Newton step from an f32 seed must reach ~1e-9-class inverse
+    residual on subdomain-interior-like conditioning (quadratic
+    contraction: ~cond^2 * eps32^2), two orders below the f32 seed —
+    enough for factor values that are cast to f32 (6e-8) anyway."""
     rng = np.random.default_rng(7)
     A = _spd_with_cond(47, 1e4, rng, batch=8)
-    X = np.asarray(inv_chain(jnp.asarray(A), force_hybrid=True))
+    X = np.asarray(_f32_seeded(A, refine=1))
     r = max(_resid(A[i], X[i]) for i in range(8))
     # ~cond^2 * eps32^2 class; anything below the f32 cast noise (6e-8)
     # of the stored factors is equivalent downstream
@@ -249,17 +249,14 @@ def test_inv_chain_hybrid_accuracy():
 
 
 def test_factor_upcast_hybrid_chain_apply_accuracy():
-    """Force the hybrid chain inverse (the TPU factor-upcast path) on
-    CPU and check the resulting f32 factors still reproduce the f64
-    apply to ~1e-5 (measured 4.8e-7 on TPU; the f32-pipeline error on
-    the same problem is 2.1e-2)."""
-    import functools
-
-    import hymls_tpu.core.preconditioner as pc
-    from hymls_tpu.core.dense import inv_chain
-    from hymls_tpu.config import Params
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu import Preconditioner
+    """Factor-upcast mode (f64 assembly, f32 factors) with every f64
+    inverse built from an f32 seed + one Newton step: the resulting f32
+    factors still reproduce the f64 apply to ~1e-5 (the f32-pipeline
+    error on the same problem is 2.1e-2)."""
+    import hymls.core.preconditioner as pc
+    from hymls.config import Params
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls import Preconditioner
 
     params = Params({
         "Problem": {"Equations": "Stokes-C", "Dimension": 2,
@@ -278,45 +275,47 @@ def test_factor_upcast_hybrid_chain_apply_accuracy():
                          dtype=jnp.float64).compute()
     y_ref = np.asarray(P64.apply_inverse(jnp.asarray(r)), np.float64)
 
-    orig = pc._inv_chain
-    pc._inv_chain = functools.partial(inv_chain, force_hybrid=True)
+    orig = pc._inv
+
+    def seeded_one_step(A):
+        if A.dtype != jnp.float64:
+            return orig(A)
+        return _f32_seeded(A, refine=1)
+
+    pc._inv = seeded_one_step
     try:
         P = Preconditioner(K, params, testvector=tv, dtype=jnp.float32,
                            factor_dtype=jnp.float64).compute()
         y = np.asarray(P.apply_inverse(jnp.asarray(r, jnp.float32)),
                        np.float64)
     finally:
-        pc._inv_chain = orig
+        pc._inv = orig
     err = np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref)
     assert err < 1e-5, err
 
 
-def test_gj_inverse_matches_lapack():
-    """Gauss-Jordan one-hot inverse (the TPU many-small-blocks fast
-    path of _batched_inv) matches the LAPACK inverse to the f32
-    rounding class, including on batches that need pivoting (zero
-    leading diagonal) and on padded identity blocks."""
-    from hymls_tpu.core.dense import gj_inverse
-
-    rng = np.random.default_rng(7)
-    A = _spd_with_cond(17, 1e4, rng, batch=32).astype(np.float32)
-    # force pivoting: zero out a diagonal entry via a row swap
-    A[3] = A[3][::-1]
-    # a padded identity block (empty subdomain) must pass through
-    A[5] = np.eye(17, dtype=np.float32)
-    X = np.asarray(gj_inverse(jnp.asarray(A)))
-    Xr = np.linalg.inv(A.astype(np.float64))
-    err = np.max(np.abs(X - Xr)) / np.max(np.abs(Xr))
-    assert err < 5e-4, err
-    assert _resid(A.astype(np.float64), X.astype(np.float64)) < 1e-2
+def test_inv_newton_native_dtype():
+    """inv_newton inverts in the input dtype: f32 stays f32 (no
+    polish), f64 reaches LAPACK-parity residuals."""
+    rng = np.random.default_rng(5)
+    A = _spd_with_cond(20, 1e5, rng, batch=3)
+    X32 = inv_newton(jnp.asarray(A, jnp.float32))
+    assert X32.dtype == jnp.float32
+    X64 = np.asarray(inv_newton(jnp.asarray(A)))
+    r_ref = max(_resid(A[i], np.linalg.inv(A[i])) for i in range(3))
+    assert max(_resid(A[i], X64[i]) for i in range(3)) < 10 * r_ref + 1e-13
 
 
-def test_gj_inverse_wide_blocks():
-    """n=72 (the cavity128 level-1 block size class)."""
-    from hymls_tpu.core.dense import gj_inverse
+def test_dense_factor_inverse_or_lu():
+    """dense_factor keeps an explicit inverse up to _LU_THRESHOLD and LU
+    factors above it; dense_solve gives the same solution either way."""
+    from hymls.core import dense
 
-    rng = np.random.default_rng(11)
-    A = _spd_with_cond(72, 1e3, rng, batch=9).astype(np.float32)
-    X = np.asarray(gj_inverse(jnp.asarray(A)))
-    R = np.eye(72) - A.astype(np.float64) @ X.astype(np.float64)
-    assert np.max(np.abs(R)) < 5e-3
+    rng = np.random.default_rng(9)
+    for n, key in ((64, "inv"), (dense._LU_THRESHOLD + 8, "lu")):
+        A = rng.standard_normal((n, n)) + n * np.eye(n)
+        fac = dense.dense_factor(jnp.asarray(A))
+        assert key in fac
+        b = rng.standard_normal(n)
+        x = np.asarray(dense.dense_solve(fac, jnp.asarray(b)))
+        assert np.linalg.norm(A @ x - b) <= 1e-10 * np.linalg.norm(b)

@@ -11,14 +11,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu import Preconditioner
-from hymls_tpu.parallel.mesh import make_mesh
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls import Preconditioner
+from hymls.parallel.mesh import make_mesh
 
 from _mesh import NDEV_SWEEP
-from hymls_tpu.parallel.halo_vcycle import make_halo_apply
-from hymls_tpu.parallel.dist_compute import DistributedCompute
+from hymls.parallel.halo_vcycle import make_halo_apply
+from hymls.parallel.dist_compute import DistributedCompute
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 devices")

@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu import Preconditioner, Solver
-from hymls_tpu.parallel.mesh import make_mesh, set_mesh
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls import Preconditioner, Solver
+from hymls.parallel.mesh import make_mesh, set_mesh
 
 from _mesh import NDEV_SWEEP
 
@@ -121,7 +121,7 @@ def test_dist_solve_collectives():
 
 def test_dist_matvec_matches_global():
     """Owner-layout halo SpMV == global SpMV, bit-exact per row."""
-    from hymls_tpu.parallel.dist import make_distributed_solve
+    from hymls.parallel.dist import make_distributed_solve
 
     K, P, S = _build(32, 1, "Stokes-C")
     P.compute()
@@ -151,7 +151,7 @@ def test_dist_matvec_matches_global():
 
 
 def _build_mixed(dist, fprec=None):
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.solvers.mixed import IterativeRefinementSolver
 
     prec = {"Separator Length": 4,
             "Number of Levels": 2,
@@ -272,7 +272,7 @@ def test_dist_bordered_solve(ndev):
     n = K.shape[0]
     # constant-pressure null space as the border (the reference's
     # standard bordered use, testSuite cavity configs)
-    from hymls_tpu.stencils import create_matrix  # noqa: F401
+    from hymls.stencils import create_matrix  # noqa: F401
     V = np.zeros((n, 1))
     V[2::3, 0] = 1.0
     V /= np.linalg.norm(V)
@@ -306,7 +306,7 @@ def test_dist_deflated_solve(ndev):
     sharded dots (GSPMD psum) around the halo operator/V-cycle —
     same converged solution as the replicated deflated solve
     (reference src/HYMLS_DeflatedSolver.cpp:159-245)."""
-    from hymls_tpu.stencils.generators import _cross2d
+    from hymls.stencils.generators import _cross2d
 
     nx, eps = 32, 0.01
     K = -_cross2d(nx, nx, 2 + 2 * eps, -1.0, -1.0, -eps, -eps)
@@ -360,8 +360,8 @@ def test_dist_complex_solve(ndev):
     vs the replicated complex solve (reference ComplexSolver runs
     over distributed Epetra vectors, src/HYMLS_ComplexSolver.hpp:41-46)."""
     import scipy.sparse as sp
-    from hymls_tpu.solvers.complex_solver import ComplexSolver
-    from hymls_tpu.stencils import laplace2d
+    from hymls.solvers.complex_solver import ComplexSolver
+    from hymls.stencils import laplace2d
 
     nx = 32
     A = laplace2d(nx, nx)
@@ -410,8 +410,8 @@ def test_dist_complex_bordered_solve(ndev):
     m-tail replicated/psum'd — parity vs the replicated bordered
     complex solve (reference src/HYMLS_ComplexBorderedSolver)."""
     import scipy.sparse as sp
-    from hymls_tpu.solvers.complex_solver import ComplexSolver
-    from hymls_tpu.stencils import laplace2d
+    from hymls.solvers.complex_solver import ComplexSolver
+    from hymls.stencils import laplace2d
 
     nx = 32
     A = laplace2d(nx, nx)
@@ -538,7 +538,7 @@ def test_dist_structured_mixed_newton_step():
     distributed (factor + repack + GSPMD-sharded V-cycle + IR loop in
     one program) — inner-iteration identity vs the replicated fused
     step."""
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.solvers.mixed import IterativeRefinementSolver
 
     def build(dist):
         params = Params({

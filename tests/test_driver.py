@@ -5,8 +5,8 @@ import os
 
 import pytest
 
-from hymls_tpu.config import load_xml
-from hymls_tpu.driver import run_with_refinements
+from hymls.config import load_xml
+from hymls.driver import run_with_refinements
 
 CFG = os.path.join(os.path.dirname(__file__), "..", "configs")
 

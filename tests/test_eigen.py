@@ -3,10 +3,10 @@ eigenvalues, tol 1e-8, <=70 JD iterations)."""
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import laplace2d
-from hymls_tpu import Preconditioner, Solver
-from hymls_tpu.solvers.eigen import JDQR, shift_invert_eigs
+from hymls.config import Params
+from hymls.stencils import laplace2d
+from hymls import Preconditioner, Solver
+from hymls.solvers.eigen import JDQR, shift_invert_eigs
 
 
 def _setup(nx=32):

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from hymls_tpu.stencils import stokes2d, laplace2d
-from hymls_tpu.ops.spmv import DiaOperator
-from hymls_tpu.parallel.halo import dia_matvec_sharded
+from hymls.stencils import stokes2d, laplace2d
+from hymls.ops.spmv import DiaOperator
+from hymls.parallel.halo import dia_matvec_sharded
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs >1 device")

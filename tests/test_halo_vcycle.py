@@ -10,13 +10,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu import Preconditioner
-from hymls_tpu.parallel.mesh import make_mesh
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls import Preconditioner
+from hymls.parallel.mesh import make_mesh
 
 from _mesh import NDEV_SWEEP
-from hymls_tpu.parallel.halo_vcycle import make_halo_apply
+from hymls.parallel.halo_vcycle import make_halo_apply
 
 
 def _build(nx, levels, eq="Laplace", part="Cartesian", sx=4):
@@ -37,7 +37,7 @@ def _build(nx, levels, eq="Laplace", part="Cartesian", sx=4):
 @pytest.mark.parametrize("nx,levels", [(32, 1), (64, 2), (32, 2)])
 def test_halo_vcycle_bitmatches_serial(nx, levels):
     # (32, 2): the coarse level has 4 subdomains on 8 devices — the
-    # trailing shards deactivate (the TPU analog of reference rank
+    # trailing shards deactivate (the analog of reference rank
     # deactivation, HYMLS_BasePartitioner.cpp:588-683).  That level's
     # per-shard batch is 1 and XLA's batch-1 matmul kernel rounds dot
     # products in a different order than the serial batch-4 kernel, so
@@ -92,7 +92,7 @@ def test_halo_vcycle_no_allgather_on_level_path():
 def test_halo_communication_volume():
     """Per-level exchanged words are O(boundary separators/device),
     far below the all_gather volume (= everything, every level)."""
-    from hymls_tpu.parallel.halo_vcycle import build_halo_plans
+    from hymls.parallel.halo_vcycle import build_halo_plans
     K, P = _build(64, 2)
     levels, coarse, meta, bmaps = build_halo_plans(P, 8)
     for lm, d in zip(meta, levels):
@@ -168,7 +168,7 @@ def test_halo_vcycle_bordered(ndev):
     """Bordered halo apply [x;s] = M^{-1}[b;t] == serial bordered apply
     (border reductions ride one psum per level; reference bordered
     ApplyInverse, src/HYMLS_SchurPreconditioner.cpp:1517-1619)."""
-    from hymls_tpu.stencils import laplace2d_neumann, create_nullspace
+    from hymls.stencils import laplace2d_neumann, create_nullspace
     nx = 32
     params = Params({
         "Problem": {"Equations": "Laplace", "Dimension": 2,

@@ -2,10 +2,10 @@
 import numpy as np
 import scipy.sparse as sp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu import Preconditioner
-from hymls_tpu.utils import testing as T
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls import Preconditioner
+from hymls.utils import testing as T
 
 
 def _stokes(nx=16, partitioner="Skew Cartesian", levels=1):

@@ -1,4 +1,4 @@
-"""Drive the MATLAB bridge server (hymls_tpu/matlab_bridge.py) through
+"""Drive the MATLAB bridge server (hymls/matlab_bridge.py) through
 its file-RPC protocol exactly as matlab/HYMLS.m does."""
 import json
 import os
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import scipy.io as sio
 
-from hymls_tpu.config import Params, save_xml
-from hymls_tpu.stencils import create_matrix
+from hymls.config import Params, save_xml
+from hymls.stencils import create_matrix
 
 
 def _wait(path, timeout=600):
@@ -58,7 +58,7 @@ def bridge():
     save_xml(params, os.path.join(d, "params.xml"))
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "hymls_tpu.matlab_bridge", d],
+        [sys.executable, "-m", "hymls.matlab_bridge", d],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     try:

@@ -4,7 +4,7 @@ import numpy as np
 import scipy.sparse as sp
 import pytest
 
-from hymls_tpu.utils.matrix import drop_by_value, put_dirichlet, DROP_MODES
+from hymls.utils.matrix import drop_by_value, put_dirichlet, DROP_MODES
 
 
 def _A():
@@ -77,7 +77,7 @@ def test_drop_by_value_all_seven_modes():
     against hand-computed expectations on one small matrix."""
     import numpy as np
     import scipy.sparse as sp
-    from hymls_tpu.utils.matrix import drop_by_value
+    from hymls.utils.matrix import drop_by_value
 
     # rows: 0 has big diag + tiny off; 1 has tiny diag + big off;
     # 2 has NO diag entry + mixed offs; tol = 0.1

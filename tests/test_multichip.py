@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu import Preconditioner, Solver
-from hymls_tpu.parallel import make_mesh, set_mesh
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls import Preconditioner, Solver
+from hymls.parallel import make_mesh, set_mesh
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs >1 device")
@@ -65,8 +65,8 @@ def test_sharded_vcycle_matches_serial():
     """Explicit shard_map V-cycle (per-shard elimination + all_gather
     separator exchange) is bit-identical to the single-device apply."""
     import jax.numpy as jnp
-    from hymls_tpu.parallel.mesh import make_mesh
-    from hymls_tpu.parallel.vcycle import make_sharded_apply, shard_factors
+    from hymls.parallel.mesh import make_mesh
+    from hymls.parallel.vcycle import make_sharded_apply, shard_factors
 
     params = Params({
         "Problem": {"Equations": "Laplace", "Dimension": 2,
@@ -86,31 +86,14 @@ def test_sharded_vcycle_matches_serial():
     assert np.abs(x_serial - x_shard).max() < 1e-12
 
 
-def test_topo_order_snake_walk():
-    """topo_order (the reference HyperCube role) must produce a walk of
-    the torus where consecutive devices differ by exactly 1 in exactly
-    one coordinate — every 'sd'-ring ppermute hop is one ICI link —
-    and must leave coordinate-less (CPU) devices untouched."""
-    from hymls_tpu.parallel.mesh import topo_order
+def test_make_mesh_device_order():
+    """make_mesh takes jax.devices() in order (the devices of one host
+    are joined all to all, so no topology walk), truncated to the
+    requested count, on one 'sd' axis."""
+    import jax
+    from hymls.parallel.mesh import make_mesh
 
-    class FakeDev:
-        def __init__(self, coords):
-            self.coords = coords
-            self.core_on_chip = 0
-
-    import itertools
-    import random
-    for shape in [(2, 4), (4, 4, 2), (2, 2, 1), (8,)]:
-        devs = [FakeDev(c) for c in itertools.product(
-            *[range(s) for s in shape])]
-        random.Random(0).shuffle(devs)
-        walk = [tuple(d.coords) for d in topo_order(devs)]
-        assert sorted(walk) == sorted(tuple(d.coords) for d in devs)
-        for a, b in zip(walk, walk[1:]):
-            diffs = [abs(x - y) for x, y in zip(a, b)]
-            assert sum(diffs) == 1, (a, b)
-
-    class Plain:  # no .coords
-        pass
-    plain = [Plain() for _ in range(4)]
-    assert topo_order(plain) == plain
+    mesh = make_mesh(4)
+    assert mesh.axis_names == ("sd",)
+    assert list(mesh.devices.ravel()) == jax.devices()[:4]
+    assert make_mesh().size == len(jax.devices())

@@ -5,7 +5,7 @@ import scipy.io as sio
 import scipy.sparse as sp
 import pytest
 
-from hymls_tpu.native import read_matrix_market, lib
+from hymls.native import read_matrix_market, lib
 
 
 @pytest.mark.skipif(lib() is None, reason="no C++ toolchain")
@@ -39,7 +39,7 @@ def test_native_reader_symmetric(tmp_path):
 def test_hdf5_roundtrip(tmp_path):
     """HDF5 dump/read parity (reference MatrixUtils::Dump HDF5 path)."""
     import scipy.sparse as sp
-    from hymls_tpu.utils.io import write_hdf5, read_hdf5
+    from hymls.utils.io import write_hdf5, read_hdf5
     rng = np.random.default_rng(0)
     A = sp.random(20, 20, density=0.3, random_state=1, format="csr")
     v = rng.standard_normal(20)
@@ -52,7 +52,7 @@ def test_hdf5_roundtrip(tmp_path):
 
 def test_native_planner_primitives():
     """Native plan-builder primitives agree with the numpy fallbacks."""
-    from hymls_tpu.native import (lookup_sorted, invert_to_padded,
+    from hymls.native import (lookup_sorted, invert_to_padded,
                                   locate_sorted, planner)
     if planner() is None:
         import pytest
@@ -81,8 +81,8 @@ def test_native_planner_primitives():
 def test_csr_hash_matches_searchsorted():
     """The native CSR hash (plan-builder hot path) agrees with the
     numpy searchsorted fallback, including padded out-of-range ids."""
-    from hymls_tpu.core.plan import CsrLookup
-    from hymls_tpu import native
+    from hymls.core.plan import CsrLookup
+    from hymls import native
 
     rng = np.random.default_rng(3)
     A = sp.random(2000, 2000, density=0.004, format="csr", random_state=7)

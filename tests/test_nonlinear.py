@@ -4,9 +4,9 @@ import numpy as np
 import scipy.sparse as sp
 import pytest
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import laplace2d
-from hymls_tpu.nonlinear import NewtonSolver, Continuation
+from hymls.config import Params
+from hymls.stencils import laplace2d
+from hymls.nonlinear import NewtonSolver, Continuation
 
 
 def _bratu(nx):

@@ -1,9 +1,9 @@
 import numpy as np
 
-from hymls_tpu.config import Params
-from hymls_tpu.grid import grid_from_params, VarType
-from hymls_tpu.partition.cartesian import CartesianPartitioner, PartitionParams
-from hymls_tpu.partition.hierarchical import build_hierarchy
+from hymls.config import Params
+from hymls.grid import grid_from_params, VarType
+from hymls.partition.cartesian import CartesianPartitioner, PartitionParams
+from hymls.partition.hierarchical import build_hierarchy
 
 
 def _setup(nx, eqn="Laplace", dim=2, sx=4, extra=None):

@@ -4,10 +4,10 @@ import scipy.sparse.linalg as spla
 
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import laplace2d, laplace3d, create_matrix, \
+from hymls.config import Params
+from hymls.stencils import laplace2d, laplace3d, create_matrix, \
     create_testvector
-from hymls_tpu import Preconditioner, Solver
+from hymls import Preconditioner, Solver
 
 
 def _params(eqn, nx, levels, dim=2, krylov="GMRES", tol=1e-10, maxiter=100,
@@ -146,7 +146,7 @@ def test_factor_sort_perm_bit_identical(eqn, levels, part, monkeypatch):
     agree BIT-FOR-BIT with the plain-gather strategy.  Non-injective
     maps (shared A22 entries) must silently fall back.  The apply
     plans must CARRY the strategy arrays (they are what makes the
-    V-cycle gathers ride the sort network on TPU)."""
+    V-cycle gathers use the chosen strategy)."""
     import jax
     outs = {}
     for strat in ("gather", "sort", "scatter"):
@@ -181,7 +181,7 @@ def test_warm_recompute_matches_fresh():
     solver precision for modest value changes, and fall back bit-
     identically to the cold factorization when the previous inverse no
     longer contracts (the residual-gated lax.cond branch).  This is the
-    TPU-native fast path for the reference's SetMatrix-then-Compute
+    fast path for the reference's SetMatrix-then-Compute
     reuse in Newton/continuation loops
     (src/HYMLS_Preconditioner.cpp:400-517)."""
     params = _params("Stokes-C", 16, 2, tol=1e-8)
@@ -221,7 +221,7 @@ def test_warm_newton_step_converges():
     tolerance while the dense inverses are warm-polished."""
     import jax
     import jax.numpy as jnp
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.solvers.mixed import IterativeRefinementSolver
 
     params = _params("Stokes-C", 16, 2, tol=1e-10, maxiter=200,
                      lor="Right", initial="Zero")

@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from hymls_tpu.config import Params
-from hymls_tpu.utils.io import read_linear_system
-from hymls_tpu.stencils import create_testvector, create_nullspace
-from hymls_tpu import Preconditioner, Solver
+from hymls.config import Params
+from hymls.utils.io import read_linear_system
+from hymls.stencils import create_testvector, create_nullspace
+from hymls import Preconditioner, Solver
 
 DATA = "/root/reference/testSuite/data/DrivenCavity"
 

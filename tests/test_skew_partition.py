@@ -7,11 +7,11 @@ matches the reference exactly."""
 import numpy as np
 import pytest
 
-from hymls_tpu.config import Params
-from hymls_tpu.grid import grid_from_params
-from hymls_tpu.partition.cartesian import PartitionParams
-from hymls_tpu.partition.skew import SkewCartesianPartitioner
-from hymls_tpu.partition.hierarchical import build_hierarchy
+from hymls.config import Params
+from hymls.grid import grid_from_params
+from hymls.partition.cartesian import PartitionParams
+from hymls.partition.skew import SkewCartesianPartitioner
+from hymls.partition.hierarchical import build_hierarchy
 
 
 def _mk(nx, ny, eqn, sx):
@@ -201,8 +201,8 @@ def test_retain_nodes_improves_convergence():
     levels improves multilevel convergence (reference 'Retain Nodes at
     Level k' parameters)."""
     import jax.numpy as jnp
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu import Preconditioner, Solver
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls import Preconditioner, Solver
     nx = 64
     iters = {}
     for retain in (False, True):

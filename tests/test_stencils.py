@@ -2,11 +2,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from hymls_tpu.stencils import (laplace2d, laplace3d, laplace2d_neumann,
+from hymls.stencils import (laplace2d, laplace3d, laplace2d_neumann,
                                 darcy2d, darcy3d, stokes2d, stokes3d,
                                 create_testvector, create_matrix)
-from hymls_tpu.config import Params
-from hymls_tpu.grid import X_PERIO, Y_PERIO
+from hymls.config import Params
+from hymls.grid import X_PERIO, Y_PERIO
 
 
 def test_laplace2d_interior_row():
@@ -131,7 +131,7 @@ def test_testvector_zeroes_dirichlet_rows():
 def test_star3d():
     """27-point stencil (reference GaleriExt_Star3D.h: center a,
     faces b, edges c, corners d; Dirichlet by omission)."""
-    from hymls_tpu.stencils import star3d
+    from hymls.stencils import star3d
     A = star3d(4, 4, 4, 26.0, -1.0, -1.0, -1.0)
     i = 1 + 4 * 1 + 16 * 1
     row = A[i].toarray().ravel()
@@ -146,8 +146,8 @@ def test_stokes_2d_lt_grid_rejected():
     'Unknown grid type' for anything but C/B in 2D
     (src/GaleriExt_Darcy2D.h:315-320); match with a clear error."""
     import pytest
-    from hymls_tpu.config import Params
-    from hymls_tpu.stencils import create_matrix
+    from hymls.config import Params
+    from hymls.stencils import create_matrix
     for gt in ("L", "T"):
         params = Params({"Problem": {"Equations": f"Stokes-{gt}",
                                      "Dimension": 2, "nx": 8, "ny": 8,

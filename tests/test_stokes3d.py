@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu import Preconditioner, Solver
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls import Preconditioner, Solver
 
 
 @pytest.mark.slow

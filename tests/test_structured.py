@@ -10,9 +10,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import create_matrix, create_testvector
-from hymls_tpu.core.preconditioner import Preconditioner
+from hymls.config import Params
+from hymls.stencils import create_matrix, create_testvector
+from hymls.core.preconditioner import Preconditioner
 
 
 def _build(eq, prob, prec, dim=2):
@@ -131,7 +131,7 @@ def test_skew_structured_matches_generic(eq, prob, prec):
 SKEW_CASES_3D = [
     ("Laplace", {"nx": 8, "ny": 8, "nz": 8}, {"Number of Levels": 1}),
     # 16^3 2-level skew Stokes also passes (2.5e-14) but its CPU
-    # compile dominates suite wall-clock; exercised by the TPU benches
+    # compile dominates suite wall-clock; exercised by chip_smoke.py
 ]
 SKEW_CASES_3D_SLOW = [
     ("Stokes-C", {"nx": 8, "ny": 8, "nz": 8}, {"Number of Levels": 1}),
@@ -176,8 +176,7 @@ def test_sort_perm_strategy_bit_identical(eq, prob, prec, dim,
     lax.sort_key_val over precomputed inverse-permutation keys,
     core/structured.py:_perm_sort_plan) is an exact re-expression of
     the gather: values only move, so the two strategies must agree
-    BIT-FOR-BIT.  On TPU the sort path is 6-14x faster above 32k
-    elements (tools/perm_bench.py)."""
+    BIT-FOR-BIT (tools/route_bench.py times the strategies)."""
     prec = dict({"Partitioner": "Skew Cartesian"}, **prec)
     outs = {}
     for strat in ("gather", "sort"):
@@ -210,7 +209,7 @@ def test_config_structured_matches_generic(cfg):
     """Shipped ocean-grid configs (B-grid transform, non-divisible
     10x11x8 grids, whole-grid coarse boxes) on the structured path."""
     import os
-    from hymls_tpu.config import load_xml
+    from hymls.config import load_xml
     params = load_xml(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "configs", f"{cfg}.xml"))
@@ -263,7 +262,7 @@ def test_disable_by_parameter():
 def test_solver_iteration_counts_identical():
     """End-to-end: CG iteration counts with the structured apply must
     equal the generic path's (laplace1-style config)."""
-    from hymls_tpu.solvers.solver import Solver
+    from hymls.solvers.solver import Solver
 
     def run(structured):
         params = Params({
@@ -303,7 +302,7 @@ def test_sharded_structured_apply_matches():
     reference's Export-with-Add halo traffic,
     src/HYMLS_Preconditioner.cpp:973-1052)."""
     import re
-    from hymls_tpu.parallel.mesh import make_mesh
+    from hymls.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")

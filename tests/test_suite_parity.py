@@ -5,8 +5,8 @@ import os
 
 import pytest
 
-from hymls_tpu.config import load_xml
-from hymls_tpu.driver import run_case
+from hymls.config import load_xml
+from hymls.driver import run_case
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = "/root/reference/testSuite/data"

@@ -4,11 +4,11 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from hymls_tpu.config import Params
-from hymls_tpu.stencils import laplace2d, create_testvector
-from hymls_tpu.stencils.generators import _cross2d
-from hymls_tpu import Preconditioner, Solver
-from hymls_tpu.solvers.complex_solver import ComplexSolver
+from hymls.config import Params
+from hymls.stencils import laplace2d, create_testvector
+from hymls.stencils.generators import _cross2d
+from hymls import Preconditioner, Solver
+from hymls.solvers.complex_solver import ComplexSolver
 
 
 def _params(nx, levels=2, maxiter=100, tol=1e-10, extra_solver=None):
@@ -97,7 +97,7 @@ def test_mixed_precision_preconditioner():
     insensitive to factor precision) while the Krylov residual still
     reaches f64-level tolerance."""
     import jax.numpy as jnp
-    from hymls_tpu.stencils import laplace2d
+    from hymls.stencils import laplace2d
     K = laplace2d(32, 32)
     params = Params({
         "Problem": {"Equations": "Laplace", "Dimension": 2,
@@ -123,7 +123,7 @@ def test_preconditioner_variants_equivalent():
     must produce the same preconditioned vector as 'Block Diagonal':
     the reference's triangular sweeps operate on the transformed+dropped
     matrix whose inter-block couplings are dropped (see plan.py)."""
-    from hymls_tpu.stencils import create_matrix
+    from hymls.stencils import create_matrix
     nx = 16
     base = {
         "Problem": {"Equations": "Stokes-C", "Dimension": 2,
@@ -157,7 +157,7 @@ def test_domain_decomposition_variant():
     strictly stronger preconditioner than 'Block Diagonal', so it must
     (a) produce a different preconditioned vector and (b) converge in
     no more GMRES iterations on the same problem."""
-    from hymls_tpu.stencils import create_matrix
+    from hymls.stencils import create_matrix
     nx = 32
     base = {
         "Problem": {"Equations": "Laplace", "Dimension": 2,
@@ -194,8 +194,8 @@ def test_domain_decomposition_variant():
 def test_fused_iterative_refinement():
     """Fused on-device IR solve (one jitted program, no host syncs)
     matches the host-loop variant and reaches f64 accuracy."""
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls.solvers.mixed import IterativeRefinementSolver
     nx = 32
     params = Params({
         "Problem": {"Equations": "Laplace", "Dimension": 2,
@@ -241,8 +241,8 @@ def test_vsum_split_assembly_next_level_accuracy():
     inv_chain bound, and the f32 apply factors must agree to f32
     rounding.  (The two paths group the A11^{-1} refinement
     differently, so agreement is ~1e-9 relative, not bit-exact.)"""
-    from hymls_tpu.stencils import create_matrix
-    from hymls_tpu.core.preconditioner import _compute_level
+    from hymls.stencils import create_matrix
+    from hymls.core.preconditioner import _compute_level
 
     K = None
     outs = {}
@@ -277,8 +277,8 @@ def test_vsum_split_iteration_parity():
     default under factor upcast) must converge with the same inner
     Krylov work as the full-f64 assembly — the whole point of the f64
     chain is next-level accuracy, which the split preserves."""
-    from hymls_tpu.stencils import create_matrix, create_testvector
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.stencils import create_matrix, create_testvector
+    from hymls.solvers.mixed import IterativeRefinementSolver
 
     iters = {}
     K = None
@@ -306,7 +306,7 @@ def test_vsum_split_iteration_parity():
 
 def test_comparison_driver():
     """main_ifpack-equivalent comparison path (ILU / Jacobi / None)."""
-    from hymls_tpu.driver import run_comparison
+    from hymls.driver import run_comparison
     base = {
         "Problem": {"Equations": "Laplace", "Dimension": 2,
                     "nx": 32, "ny": 32},

@@ -2,14 +2,11 @@
 """CPU ground-truth for factor-chain precision (round-4 task #2 / #1).
 
 On CPU an f32 matmul is a TRUE f32 matmul, so this isolates the
-numerics question from the TPU's bf16-pass default: does a fully-f32
-factor chain ('Factor Precision' = 'Same') hold iteration parity with
-the f64 chain on the MULTILEVEL cases that historically diverged?
-
-If parity holds here, the TPU divergence was bf16 rounding, not f32
-storage — and precision=HIGHEST matmuls (core/preconditioner.py) make
-'Factor Precision: Same' safe on TPU, deleting every emulated-f64
-matmul from the factor step.
+numerics question from reduced-precision matmul passes: does a
+fully-f32 factor chain ('Factor Precision' = 'Same') hold iteration
+parity with the f64 chain on the MULTILEVEL cases that historically
+diverged?  If parity holds here, f32 storage with precision=HIGHEST
+matmuls (core/preconditioner.py) is safe on any device.
 
 Usage: python tools/f32_quality_cpu.py [case ...]
   cases: stokes128, skew32cube, cavity128 (default: stokes128 skew32cube)
@@ -18,8 +15,10 @@ import json
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+_REPO = __import__("os").path.dirname(__import__("os").path.dirname(
+    __import__("os").path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+sys.path.insert(0, _REPO + "/tests")
 import _cpu  # noqa: F401,E402  (pin CPU backend)
 
 import numpy as np  # noqa: E402
@@ -34,7 +33,7 @@ def log(msg):
 
 def build(name):
     from bench import _stokes_params, _cavity128
-    from hymls_tpu.stencils import create_matrix
+    from hymls.stencils import create_matrix
     if name == "stokes128":
         p = _stokes_params(128, 2, 2, "Cartesian")
         K = create_matrix(p)
@@ -55,8 +54,8 @@ def build(name):
 
 
 def run(name, fprec):
-    from hymls_tpu.stencils import create_testvector
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.stencils import create_testvector
+    from hymls.solvers.mixed import IterativeRefinementSolver
     p, K, b = build(name)
     p = p.copy()
     p.sublist("Preconditioner")["Factor Precision"] = fprec
@@ -84,8 +83,6 @@ def main():
                             "error": repr(e)})
                 log(f"{c}/{fp} FAILED: {e!r}")
             print(json.dumps(out[-1]), flush=True)
-    with open("/tmp/f32_quality_cpu.json", "w") as f:
-        json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,33 +1,31 @@
 #!/usr/bin/env python
-"""Profile the fused factor / solve programs on TPU: per-op device
-time via jax.profiler + the xplane parser (tools/trace_ops.py).
+"""Profile the fused factor / solve programs on the device: per-op
+device time via jax.profiler + tools/trace_ops.py.
 
-Usage: python tools/profile_factor.py [case] [what]
-  case in {stokes128, cavity128, cavity64}; what in {factor, solve}.
+Usage: python tools/profile_factor.py [case] [what] [trace_dir]
+  case in {stokes128, cavity128, cavity64}; what in {factor, solve};
+  trace_dir defaults to .traces/<case>_<what> in the checkout.
 """
+import os
 import sys
-import time
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/hymls_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tools")
-
-from hymls_tpu.utils.timings import sync  # noqa: E402
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
 
 
 def main():
+    from hymls.utils import compile_cache
+    compile_cache.enable()
     case = sys.argv[1] if len(sys.argv) > 1 else "stokes128"
     what = sys.argv[2] if len(sys.argv) > 2 else "factor"
     from step_decompose import build_case, delta_time, log
-    from hymls_tpu.stencils import create_testvector
-    from hymls_tpu.solvers.mixed import IterativeRefinementSolver
+    from hymls.stencils import create_testvector
+    from hymls.solvers.mixed import IterativeRefinementSolver
 
     p, K, b = build_case(case)
     tv = create_testvector(p, K)
@@ -69,12 +67,13 @@ def main():
         fjit = jax.jit(steps)
         args = (jnp.float64(1.0), afac0)
 
-    sync(fjit(1, *args))
+    jax.block_until_ready(fjit(1, *args))
     t = delta_time(fjit, 3, *args)
     log(f"{what}: {t:.4f} s/step; tracing 2 steps ...")
-    trace_dir = f"/tmp/jaxtrace_{case}_{what}"
+    trace_dir = sys.argv[3] if len(sys.argv) > 3 else os.path.join(
+        os.path.dirname(HERE), ".traces", f"{case}_{what}")
     jax.profiler.start_trace(trace_dir)
-    sync(fjit(2, *args))
+    jax.block_until_ready(fjit(2, *args))
     jax.profiler.stop_trace()
     log("trace done; parsing ...")
     import trace_ops

@@ -30,10 +30,10 @@ import numpy as np
 def run_case(nx: int, re: float):
     import jax
     import jax.numpy as jnp
-    from hymls_tpu.config import Params
-    from hymls_tpu.stencils import create_testvector, create_nullspace
-    from hymls_tpu.stencils.navier_stokes import cavity_jacobian
-    from hymls_tpu import Preconditioner, Solver
+    from hymls.config import Params
+    from hymls.stencils import create_testvector, create_nullspace
+    from hymls.stencils.navier_stokes import cavity_jacobian
+    from hymls import Preconditioner, Solver
 
     params = Params({
         "Problem": {"Equations": "Stokes-C", "Dimension": 2,
@@ -64,17 +64,16 @@ def run_case(nx: int, re: float):
     b = K @ x_ex
 
     P.compute()
-    from hymls_tpu.utils.timings import sync
     x, _ = S.apply_inverse(b)           # warm-up/compile
-    sync(x)
+    jax.block_until_ready(x)
 
     t0 = time.perf_counter()
     P.compute()
-    sync(P.factors)
+    jax.block_until_ready(P.factors)
     t_compute = time.perf_counter() - t0
     t0 = time.perf_counter()
     x, res = S.apply_inverse(b)
-    sync(x)
+    jax.block_until_ready(x)
     t_solve = time.perf_counter() - t0
 
     relres = float(np.linalg.norm(K @ np.asarray(x) - b)
@@ -119,6 +118,7 @@ def main():
                 di = r["iters"] - p["iters"]
                 print(f"# {r['case']}: solve {ds:.2f}x vs {p['rev']}, "
                       f"iters {di:+d}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as f:
         for r in results:
             f.write(json.dumps(r) + "\n")

@@ -1,59 +1,56 @@
 #!/usr/bin/env python
-"""Aggregate per-op TPU durations from a jax.profiler trace.
+"""Aggregate per-op device durations from a jax.profiler trace.
 
-The trace viewer normally needs TensorBoard; this standalone tool
-parses the xplane.pb directly (schema: the public TSL XPlane proto,
-compiled on demand with protoc) and prints the top ops by total
-device time — enough to find which fusions/DMAs dominate a loop.
+Reads the newest ``*.xplane.pb`` under ``<trace_dir>/plugins/profile/``
+with ``jax.profiler.ProfileData`` and sums event durations per
+(line, op) on every device plane (``/device:GPU:<i>`` on the GPU) —
+enough to find which fusions or copies dominate a loop.
 
 Usage:
-    python tools/trace_ops.py /tmp/jaxtrace [top_n]
+    python tools/trace_ops.py <trace_dir> [top_n]
 
-where /tmp/jaxtrace is the directory passed to
-jax.profiler.start_trace().
+where <trace_dir> is the directory passed to jax.profiler.start_trace().
 """
 import glob
 import os
-import subprocess
 import sys
-import tempfile
 from collections import defaultdict
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+
+def latest_xplane(trace_dir: str) -> str:
+    files = glob.glob(os.path.join(
+        trace_dir, "plugins", "profile", "*", "*.xplane.pb"))
+    if not files:
+        raise SystemExit(f"no xplane.pb under {trace_dir}")
+    return max(files, key=os.path.getmtime)
 
 
-def _load_proto():
-    out = tempfile.mkdtemp(prefix="xplane_pb_")
-    subprocess.run(["protoc", f"--proto_path={HERE}",
-                    f"--python_out={out}", "xplane.proto"], check=True)
-    sys.path.insert(0, out)
-    import xplane_pb2
-    return xplane_pb2
+def device_op_times(trace_dir: str) -> dict:
+    """{plane name: {(line name, op name): [total_ns, count]}} over the
+    device planes of the newest trace in `trace_dir`."""
+    from jax.profiler import ProfileData
+    data = ProfileData.from_file(latest_xplane(trace_dir))
+    out = {}
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        agg = defaultdict(lambda: [0.0, 0])
+        for line in plane.lines:
+            for ev in line.events:
+                agg[(line.name, ev.name)][0] += ev.duration_ns
+                agg[(line.name, ev.name)][1] += 1
+        out[plane.name] = dict(agg)
+    return out
 
 
 def main(trace_dir: str, top_n: int = 30):
-    xplane_pb2 = _load_proto()
-    files = glob.glob(os.path.join(
-        trace_dir, "plugins/profile/*/*.xplane.pb"))
-    if not files:
-        raise SystemExit(f"no xplane.pb under {trace_dir}")
-    sp = xplane_pb2.XSpace()
-    sp.ParseFromString(open(sorted(files)[-1], "rb").read())
-    for pl in sp.planes:
-        if not pl.name.startswith("/device:TPU"):
-            continue
-        md = pl.event_metadata
-        agg = defaultdict(lambda: [0, 0])
-        for line in pl.lines:
-            for ev in line.events:
-                name = md[ev.metadata_id].name
-                agg[(line.name, name)][0] += ev.duration_ps
-                agg[(line.name, name)][1] += 1
-        print(f"== {pl.name}")
-        print(f"{'line':14s} {'op':58s} {'total_ms':>9s} {'count':>6s}")
-        for (ln, name), (ps, cnt) in sorted(
+    for plane, agg in device_op_times(trace_dir).items():
+        print(f"== {plane}")
+        print(f"{'line':24s} {'op':56s} {'total_ms':>9s} {'count':>6s}")
+        for (ln, name), (ns, cnt) in sorted(
                 agg.items(), key=lambda kv: -kv[1][0])[:top_n]:
-            print(f"{ln[:14]:14s} {name[:58]:58s} {ps/1e9:9.3f} {cnt:6d}")
+            print(f"{ln[:24]:24s} {name[:56]:56s} {ns / 1e6:9.3f} "
+                  f"{cnt:6d}")
 
 
 if __name__ == "__main__":
